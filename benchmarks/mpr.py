@@ -13,7 +13,7 @@ penetration query:
 
 Everything is written for a SINGLE pair in local/world-consistent
 coordinates and vmapped by callers; supports are one-hot argmax matmuls
-(TPU-friendly, no data-dependent gathers).  All loops are lax.while_loop
+(no data-dependent gathers).  All loops are lax.while_loop
 with hard iteration caps so the jitted step keeps static shapes.
 
 Reference behavior: libccd ccdMPRPenetration (portal discovery +

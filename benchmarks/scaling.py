@@ -221,7 +221,7 @@ def main():
         # equal work AND equal host resources: each rate from its own
         # subprocess with a matching device topology.  NOTE the ratio is
         # still only a CPU proxy: one XLA CPU device cannot intra-op-
-        # parallelize this program across the host the way one TPU chip
+        # parallelize this program across the host the way one GPU
         # uses its whole die, so >1 readings mean "one CPU device is
         # compute-starved", not "sharding speeds up equal work"
         "rate_1dev_fullhost": round(rate_1dev, 1),

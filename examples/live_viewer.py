@@ -2,7 +2,7 @@
 
 Equivalent of the reference's GLFW window + keyboard spawning
 (mj_visual.cpp, mj_main.cpp:40-46), but as a network client so the sim can
-live on the TPU host.  With a display: interactive matplotlib window
+live on the accelerator's host.  With a display: interactive matplotlib window
 (mouse-drag camera; keys b/s/c spawn, x destroy, arrows/+/- camera, q
 quit).  Headless: dumps frames to --out.
 
@@ -27,19 +27,12 @@ def start_demo_server(port: int):
     from mujoco_sim_tpu.runtime.sim import Simulation
     from mujoco_sim_tpu.io.server import SimServer
 
-    robots = {}
-    for cls, geom in {
-            "cube": '<geom type="box" size=".06 .06 .06" mass="1"/>',
-            "sphere": '<geom type="sphere" size=".06" mass="1"/>',
-            "cylinder": '<geom type="cylinder" size=".05 .06" mass="1"/>',
-    }.items():
-        path = f"/tmp/viewer_{cls}.xml"
-        with open(path, "w") as f:
-            f.write(f'<mujoco model="{cls}"><worldbody>'
-                    f'<body name="{cls}" pos="0 0 0.3"><freejoint/>{geom}'
-                    f'</body></worldbody></mujoco>')
-        robots[cls] = scene.RobotConfig(path=path)
-    spec = scene.compose("/root/reference/model/world/empty.xml",
+    fixtures = os.path.join(os.path.dirname(__file__), "..", "tests",
+                            "fixtures")
+    robots = {cls: scene.RobotConfig(
+        path=os.path.join(fixtures, f"spawn_{cls}.xml"))
+        for cls in ("cube", "sphere", "cylinder")}
+    spec = scene.compose(os.path.join(fixtures, "empty_world.xml"),
                          robots=robots, instances=4)
     m = set_const(compile_spec(spec))
     spawnable = {cls: [cls] + [f"{i}_{cls}" for i in range(1, 4)]

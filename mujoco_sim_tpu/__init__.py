@@ -1,4 +1,4 @@
-"""mujoco_sim_tpu: TPU-native batched robot simulation.
+"""mujoco_sim_tpu: batched robot simulation on an accelerator.
 
 A from-scratch JAX/XLA framework with the capabilities of the
 HoangGiang93/mujoco_sim reference stack (see PARITY.md for the

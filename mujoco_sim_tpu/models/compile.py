@@ -531,9 +531,8 @@ def compile_spec(spec: mjcf.SpecTree, ncon_budget: int | None = None,
         maxvhi = max(len(v) for v, _ in hull_hi_entries)
         # pads REPEAT the first real vertex (not a 1e6 sentinel): the
         # exact query's support min/max then needs no mask, so XLA fuses
-        # the (C, V) axis-support product straight into each reduction —
-        # the 8 masked select_reduces re-reading the materialized product
-        # were ~15 ms/step at manip 4096 envs (r5 profile).  The mask
+        # the (C, V) axis-support product straight into each reduction
+        # instead of materializing it for masked re-reads.  The mask
         # stays for the feature-classification step (duplicate verts
         # would inflate its in-window count).
         mesh_vert_hi = np.zeros((nhull, maxvhi, 3))
@@ -1017,7 +1016,7 @@ def compile_spec(spec: mjcf.SpecTree, ncon_budget: int | None = None,
     # ---- tendons: fixed = static linear form W_q qpos (two tiny constant
     # matmuls at runtime); spatial = static LEG tables — plain site-site
     # segments plus sphere/cylinder wrap legs — evaluated batched by
-    # ops/tendon.py (TPU-first replacement for mj_tendon's per-wrap loop)
+    # ops/tendon.py (a batched replacement for mj_tendon's per-wrap loop)
     ntendon = len(spec.tendons)
     ten_Wq = np.zeros((ntendon, nq))
     ten_Wv = np.zeros((ntendon, nv))
@@ -1148,8 +1147,8 @@ def compile_spec(spec: mjcf.SpecTree, ncon_budget: int | None = None,
 
     # contact candidates: all pairs narrowphased every step (vectorized per
     # type group), then top-K compacted into ncon_budget contact slots so efc
-    # shapes stay static regardless of scene size (TPU-first replacement for
-    # runtime broadphase; SURVEY §7 'static shapes everywhere')
+    # shapes stay static regardless of scene size (static-shape replacement
+    # for runtime broadphase; SURVEY §7 'static shapes everywhere')
     pair_keys = [pair_key(GeomType(geom_type[a]), GeomType(geom_type[b]))[0]
                  for a, b in zip(pair_g1, pair_g2)]
     groups, ncand = build_groups(pair_keys)

@@ -556,10 +556,7 @@ class Data:
     cdof: jax.Array            # (nv, 6) dof motion axes (about subtree com)
     cdof_dot: jax.Array        # (nv, 6)
     qM: jax.Array              # (nv, nv) dense mass matrix
-    # cholesky factor of qM (+ armature).  SENTINEL: on the TPU pallas
-    # path with noslip off, engine.forward leaves qLD all-ZERO (the
-    # factor is fused into each pallas chol_solve and never materialized;
-    # engine.py fwd 'crb' scope) — consumers must check, like noslip does
+    # cholesky factor of qM (+ armature)
     qLD: jax.Array             # (nv, nv)
     qfrc_bias: jax.Array       # (nv,)
     qfrc_passive: jax.Array    # (nv,)

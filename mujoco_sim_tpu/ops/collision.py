@@ -31,11 +31,10 @@ def _rows_per(m: Model) -> int:
 def _top_k_small(x: jax.Array, k: int):
     """(values, indices) of the k LARGEST of x along the last axis.
 
-    lax.top_k lowers to a full variadic sort custom-call that costs ~2.5 ms
-    per step at 4096 envs on TPU (profiled r2); for the tiny n here
+    lax.top_k lowers to a full variadic sort; for the tiny n here
     (candidate lists of 8..64) k argmax/mask passes fuse into the step
-    program and are ~100x cheaper.  Ties resolve to the lowest index, same
-    as lax.top_k.
+    program instead.  Ties resolve to the lowest index, same as
+    lax.top_k.
     """
     n = x.shape[-1]
     if k >= n:
@@ -443,10 +442,9 @@ def _plane_mesh(pp, pR, s1, mp, mR, verts, vmask, margin=0.0):
 def _pts_vs_planes(pts_local, planes):
     """(..., k, 3) x (..., f, 4) -> signed distances (..., k, f).
 
-    Written as broadcast-multiply + reduce over the 3-axis, NOT einsum: XLA
-    lowers a K=3 dot_general as a 'convolution fusion' that ran at ~30 GB/s
-    on the r2 PR2 trace (443us per call); the elementwise form fuses into
-    the downstream min/max reductions on the VPU."""
+    Written as broadcast-multiply + reduce over the 3-axis, NOT einsum: a
+    K=3 dot_general would be an op of its own, while the elementwise form
+    fuses into the downstream min/max reductions."""
     prod = pts_local[..., :, None, :] * planes[..., None, :, :3]
     return prod.sum(-1) - planes[..., None, :, 3]
 
@@ -490,26 +488,16 @@ def _hull_ref_face_depth(pts_local, planes, k_out, pts_mask=None,
     — while still rejecting far-away corners; callers pass a fraction of
     the other hull's bounding radius.
     Returns (depth (...,k_out), pts idx (...,k_out), nref (...,3) local).
-
-    On the TPU backend the query runs as a fused pallas kernel
-    (ops/pallas_sat.py) instead of materializing the (instances, V, F)
-    support tensor to HBM; the XLA form below is the CPU/test path and
-    the MST_DISABLE_PALLAS A/B reference.
     """
-    from mujoco_sim_tpu.ops.pallas_sat import (hull_ref_face_depth,
-                                               use_pallas_sat)
-    if use_pallas_sat() and pts_local.ndim == 3:
-        return hull_ref_face_depth(pts_local, planes, k_out, pts_mask,
-                                   lateral_filter, lateral_slack)
     vals = _pts_vs_planes(pts_local, planes)    # (..., V, F)
     if pts_mask is not None:
         vals = jnp.where(pts_mask[..., :, None] > 0.5, vals, 1e9)
     per_face_min = vals.min(axis=-2)            # (..., F) support separation
     sep = per_face_min.max(axis=-1)             # >0 => a face separates
     ref_f = jnp.argmax(per_face_min, axis=-1)
-    # one-hot contraction instead of take_along_axis: TPU element gathers on
-    # the (V, F) tensor cost ~8 ms/step on PR2 (r2 trace fusion.8608), and
-    # recomputing depth from the 4-float plane avoids materializing vals
+    # one-hot contraction instead of take_along_axis: no element gather on
+    # the (V, F) tensor, and recomputing depth from the 4-float plane
+    # avoids materializing vals
     oh = jax.nn.one_hot(ref_f, planes.shape[-2], dtype=planes.dtype)
     plane = (oh[..., None] * planes).sum(-2)
     nref = plane[..., :3]
@@ -533,15 +521,15 @@ def _hull_ref_face_depth(pts_local, planes, k_out, pts_mask=None,
 
 def _face_normal_world(R, planes, fidx):
     # fidx (...,k); planes (...,f,4) -> outward face normals (...,k,3) world
-    # (one-hot contraction: element gathers are slow on TPU, r2 trace)
+    # (one-hot contraction instead of an element gather)
     oh = jax.nn.one_hot(fidx, planes.shape[-2], dtype=planes.dtype)
     nf = (oh[..., :, :, None] * planes[..., None, :, :3]).sum(-2)
     return _rotate_rows_fwd(R, nf)
 
 
 def _oh_pick(vals, idx):
-    """vals (..., n) picked at idx (...,) via one-hot reduce (TPU
-    take_along_axis lowers to element gathers — see _pts_vs_planes)."""
+    """vals (..., n) picked at idx (...,) via one-hot reduce (fuses,
+    where take_along_axis lowers to an element gather)."""
     oh = jax.nn.one_hot(idx, vals.shape[-1], dtype=vals.dtype)
     return (vals * oh).sum(-1)
 
@@ -689,7 +677,7 @@ def _box_mesh(p1, R1, s1, p2, R2, verts2, planes2, vmask2):
     depth = s1[..., None, :] - jnp.abs(loc1)
     pen = depth.min(axis=-1)           # >0 inside box
     ax = depth.argmin(axis=-1)
-    # one-hot select (per-vert element gather cost 8 ms/step on PR2, r2)
+    # one-hot select instead of a per-vert element gather
     oh_ax = jax.nn.one_hot(ax, 3, dtype=dtype)
     sign = jnp.sign(jnp.sum(loc1 * oh_ax, axis=-1))
     n_loc = oh_ax * sign[..., None]
@@ -720,9 +708,8 @@ def _mesh_mesh(p1, R1, verts1, planes1, vmask1,
     # verts of 1 in hull 2 (shared reference face), and verts of 2 in
     # hull 1 — BOTH directions ride ONE ref-face-depth call by stacking
     # along the pair axis (the shared mesh_vert_pad/mesh_face_pad tables
-    # make the (V, F) shapes identical): one pallas launch + one staging
-    # chain instead of two (the pair was 2 x 92us + staging on the PR2
-    # step, r5 profile)
+    # make the (V, F) shapes identical): one set of launches instead of
+    # two
     vw1 = p1[..., None, :] + _rotate_rows_fwd(R1, verts1)
     loc2 = _rotate_rows(R2, vw1 - p2[..., None, :])
     vw2 = p2[..., None, :] + _rotate_rows_fwd(R2, verts2)
@@ -775,8 +762,8 @@ def _mesh_mesh(p1, R1, verts1, planes1, vmask1,
     # gate on the emitted manifold depth (dist rows), NOT on -sep: the
     # face-only joint SAT cannot prove separation along edge-cross axes,
     # so -sep reads "deep" for corner-region SEPARATED pairs (a -sep
-    # gate stayed on for the whole PR2 bench — 6 ms/step of exact-path
-    # work with zero deep contacts).  The dist rows are the laterally-
+    # gate stayed on for the whole PR2 bench, running the exact path
+    # with zero deep contacts).  The dist rows are the laterally-
     # contained vertex depths: a separated corner pair has no contained
     # verts, so its rows read 1e9 and the gate stays off.  Pairs that DO
     # read deep but are edge-cross-separated still fire the query; the
@@ -816,8 +803,8 @@ def _mesh_mesh(p1, R1, verts1, planes1, vmask1,
         dist0, pos0, nrm0, _ = carry
         # ---- deep-pair COMPACTION: the exact query costs ~C x V support
         # reductions per lane; running it masked over all P pairs (x env
-        # batch above) measured 37 ms/step on the PR2 bench whenever ONE
-        # env had one deep pair.  Deep pairs are rare, so the deepest
+        # batch above) paid for every pair whenever ONE env had one deep
+        # pair.  Deep pairs are rare, so the deepest
         # <= D are one-hot-compacted into D slots, queried there, and
         # scattered back; overflow pairs keep the SAT manifold.
         score = jnp.where(use_exact, depth_sat, -jnp.inf)
@@ -846,8 +833,8 @@ def _mesh_mesh(p1, R1, verts1, planes1, vmask1,
         # lost off the base hull flipped the axis 3 deg off the oracle).
         # Only the (D, nhull) mesh one-hots and cyl descriptors are
         # selected per lane; the tables themselves ride shared into the
-        # query and are gathered inside its gate (r5: the per-lane
-        # fpoly/hedge copies were the dominant HBM term at manip batch)
+        # query and are gathered inside its gate (per-lane fpoly/hedge
+        # copies would be the largest memory term at manip batch)
         ohA = OH @ extras['ohA']                         # (D, nhull)
         ohB = OH @ extras['ohB']
         tabs = {k: extras[k] for k in
@@ -1092,7 +1079,7 @@ def collision(m: Model, d: Data) -> Data:
     BIG = jnp.asarray(1e9, dtype)
 
     # per-group candidate blocks, concatenated in the (contiguous, ordered)
-    # cand_adr layout at the end — scatters don't fuse on TPU
+    # cand_adr layout at the end — scatters do not fuse
     blk_dist, blk_pos, blk_nrm, blk_act, blk_selp = [], [], [], [], []
 
     from mujoco_sim_tpu.ops.colgroups import pair_key
@@ -1208,8 +1195,8 @@ def collision(m: Model, d: Data) -> Data:
                 # slots with one cumsum (candidate order; the solver is
                 # order-invariant).  Only when MORE than P survive does the
                 # deepest-first serial-argmax top-P run, inside a gated
-                # one-iteration while (the former always-on 32-pass chain
-                # was ~105us/step + ~130 dispatch-bound HLO ops per group).
+                # one-iteration while (an always-on 32-pass chain would
+                # add ~130 small HLO ops per group to every step).
                 c1 = geom_cw[pg1]
                 c2 = geom_cw[pg2]
                 mrg = margin_all[sel]
@@ -1246,9 +1233,8 @@ def collision(m: Model, d: Data) -> Data:
             #                                  margin] constants
             #   sel_i = A_i @ geom_pay    per-geom dynamic payload (16 cols)
             #   oh_hull = A_2 @ G2H       geom->hull constant
-            # replacing per-field traced-index gathers (~1.9 ms/step on the
-            # r2 PR2 trace) and the earlier (nenv, npairs, 83) payload
-            # concat (~0.5 ms/step, r2 trace concatenate.1873).
+            # replacing per-field traced-index gathers and a
+            # (nenv, npairs, 83) payload concat.
             nhull = m.mesh_vert_pad.shape[0]  # meshes + cyl prisms
             is_mm = key == (GeomType.MESH, GeomType.MESH)
             S = np.zeros((npg, 2 * m.ngeom))
@@ -1273,8 +1259,8 @@ def collision(m: Model, d: Data) -> Data:
 
             def hull_tables(oh):
                 """Hull tables at selected pairs via the (P, nhull) one-hot:
-                the (P, nhull) x (nhull, V*3) matmul rides the MXU instead
-                of element gathers (r2 trace)."""
+                one (P, nhull) x (nhull, V*3) matmul instead of element
+                gathers."""
                 def take(tab):
                     tab = jnp.asarray(tab, dtype)
                     return (oh @ tab.reshape(nhull, -1)).reshape(
@@ -1326,8 +1312,7 @@ def collision(m: Model, d: Data) -> Data:
     # per-candidate pair attributes.  Primitive groups have STATIC pair ids
     # (lay.cand_pairid); mesh groups pick pairs dynamically, so their
     # attribute segments are re-selected with a small one-hot matmul — no
-    # dynamic element gathers anywhere (each cost 85-170us/step on PR2, r2
-    # trace fusion.8611+).
+    # dynamic element gathers anywhere.
     npair_ = len(lay.pair_geom1)
     if m.opt.override_contacts:
         # mjENBL_OVERRIDE: o_margin/o_solref/o_solimp replace the mixed

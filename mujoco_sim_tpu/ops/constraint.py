@@ -5,11 +5,11 @@ reference acceleration from solref, regularization R = (1-d)/d * diagApprox)
 with *static* row layout: every potential row owns a fixed slot
 (models/compile.py assigns addresses); inactive rows are masked.
 
-TPU note: rows are built as vectorized per-section blocks and CONCATENATED
-in the compile-time address order (equality, dof friction, limits, contacts
-— models/compile.py:607-642) instead of scattered into preallocated arrays.
-Scatters don't fuse on TPU and dominated step time at small nv; the concat
-form is pure elementwise/gather work that XLA fuses into the step program.
+Rows are built as vectorized per-section blocks and CONCATENATED in the
+compile-time address order (equality, dof friction, limits, contacts —
+models/compile.py:607-642) instead of scattered into preallocated arrays.
+Scatters do not fuse; the concat form is pure elementwise/gather work that
+XLA fuses into the step program.
 
 The reference depends on these semantics through mj_step: joint-couple
 equality for mimic joints (pr2.xml:398-411), weld equality for multi-instance
@@ -398,9 +398,8 @@ def make_constraint(m: Model, d: Data, com: dict) -> Data:
         mc = m.max_condim
         elliptic = m.opt.cone == int(ConeType.ELLIPTIC)
         nrows_per = contact_rows_per(mc, m.opt.cone)
-        # all per-contact body lookups via one-hot matmuls: the dynamic
-        # element gathers they replace cost ~0.1-0.2 ms each per step on
-        # TPU (r2 trace fusion.614/615); the (K, nbody) one-hots fuse.
+        # all per-contact body lookups via one-hot matmuls instead of
+        # dynamic element gathers; the (K, nbody) one-hots fuse.
         # geom->body is folded into the one-hot with a static 0/1 matrix.
         geom2body = np.zeros((m.ngeom, m.nbody))
         geom2body[np.arange(m.ngeom), lay.geom_bodyid] = 1.0

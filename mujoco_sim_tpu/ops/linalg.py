@@ -1,15 +1,14 @@
-"""Batched small-matrix linear algebra tuned for TPU.
+"""Batched small-matrix linear algebra in plain XLA ops.
 
-XLA's generic ``jnp.linalg.cholesky`` / ``solve_triangular`` lower to
-loop-heavy programs that are catastrophically slow for the tiny per-env
-systems a robot sim produces (nv = 6..60, batched over thousands of envs).
-Here we emit *static* unrolled column-Cholesky / substitution code for small
-n and a blocked recursive scheme (leaf = unrolled, off-diagonal updates =
-batched matmuls that XLA maps onto the MXU) for larger n.
+The tiny per-env systems a robot sim produces (nv = 6..60, batched over
+thousands of envs) are factored with *static* unrolled column-Cholesky /
+substitution code for small n and a blocked recursive scheme (leaf =
+unrolled, off-diagonal updates = batched matmuls) for larger n, so they
+fuse into the step program on every backend.
 
 Replaces the factorization path the reference delegates to libmujoco's
 sparse LDL (mj_factorM / mj_solveM inside mj_step2, SURVEY.md §2.2); dense
-is the right call on TPU where the batch axis supplies the parallelism.
+is the right call where the batch axis supplies the parallelism.
 
 All functions operate on the trailing dims and broadcast over any leading
 batch dims; they are also safe under vmap (pure indexing on trailing axes).

@@ -17,7 +17,7 @@ decides when a face participates is ~1e-3 rad (a cube face tilted 0.05
 deg keeps the 4-corner manifold, 0.1 deg collapses it to an edge).
 Reference behavior behind mj_step1 (/root/reference/src/mj_main.cpp:83).
 
-TPU-first design: instead of the oracle's sequential EPA polytope loop,
+Batch-first design: instead of the oracle's sequential EPA polytope loop,
 the exact MTV comes from a COMPLETE separating-axis scan over every
 face normal of the Minkowski difference — hull A's merged-face normals,
 hull B's (negated), and all cross(edgeDirA, edgeDirB) axes (both
@@ -28,8 +28,8 @@ convergence tolerance:
 
     depth = min_d [ max_A(d.a) - min_B(d.b) ],   n = argmin_d
 
-That is a pure batched reduction (broadcast-multiply + min/max trees on
-the VPU — no sequential support loop like MPR/EPA), and the whole query
+That is a pure batched reduction (broadcast-multiply + min/max trees —
+no sequential support loop like MPR/EPA), and the whole query
 sits inside a one-iteration lax.while_loop keyed on `enabled`, so
 shallow-contact scenes (the PR2 bench) pay a single predicate check.
 
@@ -63,7 +63,7 @@ _COS_FACE = 1.0 - 1.25e-5
 
 def _rot(R, pts):
     """local->world rotate (3,3) x (..., 3): broadcast form, not einsum
-    (K=3 dot_general lowers as a slow conv fusion on TPU)."""
+    (a K=3 contraction fuses as multiply + reduce)."""
     return (R[None, :, :] * pts[..., None, :]).sum(-1)
 
 
@@ -97,29 +97,18 @@ def _support_minmax(axes, w, vm, cen, aw, cyl):
     """Support extents [min, max] of one hull along unit axes (C, 3).
     UNMASKED reductions: the vert_hi tables pad by repeating the first
     real vertex (models/compile.py), so pads never win — the masked
-    select form forced XLA to materialize the (C, V) product and re-read
-    it per reduction (~15 ms/step at manip 4096, r5); `vm` stays in the
-    signature for the support-tuple plumbing but is unused here.
+    select form made XLA materialize the (C, V) product and re-read it
+    once per reduction; `vm` stays in the signature for the
+    support-tuple plumbing but is unused here. Both reductions read the
+    same broadcast product, which XLA fuses into one sibling-reduction
+    kernel.
     Cylinder-flagged hulls (cyl[0] > 0.5) use the exact analytic support
     instead of their prism vertex cloud — the 16-gon facet quantization
     both misstates the depth (~2% of r) and rotates the MTV onto facet
     normals."""
-    # TPU path: fused pallas kernel (ops/pallas_support.py) keeps the
-    # (C, V) product in VMEM and emits both reductions in one pass.
-    # XLA-path note — two A/B'd variants both lost on-chip (r5): (a)
-    # masked select-reductions (the r1-r4 form) added 8 full re-reads of
-    # the materialized (C, V) product (~2.3 ms/step at manip 4096); (b)
-    # a single +-axes max reduction (min(p) = -max(-p)) doubled the
-    # product compute (71.2k -> 62.4k env-steps/s @1024).  The unmasked
-    # two-reduction form is the measured XLA optimum.
-    from mujoco_sim_tpu.ops.pallas_support import (support_minmax,
-                                                   use_pallas_support)
-    if use_pallas_support() and axes.shape[0] >= 32:
-        mn, mx = support_minmax(axes, w)
-    else:
-        p = (axes[:, None, :] * w[None, :, :]).sum(-1)        # (C, V)
-        mx = p.max(axis=-1)
-        mn = p.min(axis=-1)
+    p = (axes[:, None, :] * w[None, :, :]).sum(-1)            # (C, V)
+    mx = p.max(axis=-1)
+    mn = p.min(axis=-1)
     ext = _cyl_ext(axes, aw, cyl[1], cyl[2])
     dc = (axes * cen[None, :]).sum(-1)
     mx = jnp.where(cyl[0] > 0.5, dc + ext, mx)
@@ -151,18 +140,13 @@ def _topk_edge_dirs(he_l, hm, n, s, sign, K, p, R):
     max (hull A), -1 at min (hull B).
 
     Scoring stays in the LOCAL frame (dot with R^T n + p.n) so the
-    (E, 2, 3) world endpoint table is never materialized — at manip
-    batch (1024 envs x 8 deep slots) the world transforms + their
-    products were a dominant HBM term (r5).  Only the K selected edge
-    DIRECTIONS are rotated.
+    (E, 2, 3) world endpoint table is never materialized at manip batch
+    (envs x deep slots); only the K selected edge DIRECTIONS are
+    rotated.
 
     Selection is K serial argmin passes, NOT lax.top_k: top_k lowers to
-    a full sort, and the 4 sorts (2 hulls x 2 refinement rounds)
-    measured 739us/step EACH on-chip (r5 profile) — 2.96 ms of the
-    21 ms manip step.  Each argmin pass is a fused reduce over (E,);
-    all K one-hot gathers batch into ONE (K, E) matmul.  (The r3 note
-    preferring top_k was measured latency-bound on the mostly-gated-off
-    PR2 bench.)"""
+    a full sort per hull and round.  Each argmin pass is a fused reduce
+    over (E,); all K one-hot gathers batch into ONE (K, E) matmul."""
     nloc = (R * n[:, None]).sum(0)                            # R^T n
     pn = (p * n).sum()
     pe = (he_l * nloc[None, None, :]).sum(-1) + pn            # (E, 2)
@@ -205,8 +189,7 @@ def _mtv(wA, vmA, wB, vmB, nfA, fmA, nfB, fmB,
 
     Coarse pass: both hulls' merged-face normals only.  A global
     edge-cross sweep would be exact in one shot but costs |EA|x|EB|xV
-    per pair — measured 53 ms/step on the PR2 bench when a deep pair
-    activates the gate (the capped-48-direction variant).  Instead,
+    per pair whenever a deep pair activates the gate.  Instead,
     _REFINE_ROUNDS rounds each cross the _K_EDGE edges nearest each
     hull's support plane along the CURRENT axis (endpoint tables,
     exact geometry, 256 axes/round) and re-minimize.  The true MTV
@@ -219,40 +202,11 @@ def _mtv(wA, vmA, wB, vmB, nfA, fmA, nfB, fmB,
     contact by cm (armar6 arm pairs: 0.5 deg of axis error displaced
     the witness 5 cm)."""
     dtype = wA.dtype
-    from mujoco_sim_tpu.ops.pallas_refine import (mtv_query,
-                                                  use_pallas_refine)
-    if use_pallas_refine():
-        # TPU: ONE fused kernel runs the whole query in VMEM — coarse
-        # face-normal SAT + both refinement rounds (top-K edge
-        # selection, cross table, support scan, axis pick).  The XLA
-        # form's cross-table copies, axis transposes and argmin loops
-        # were ~2.3 ms/step at manip 1024 (r5 profile), and the
-        # coarse pass's separate pallas_support staging co-lived with
-        # the round kernels' and overflowed XLA's scoped VMEM at PR2
-        # hull sizes (compile failure).
-        depth, n = mtv_query(wA, wB, heA, heB, hmA, hmB,
-                             nfA, nfB, fmA, fmB, RA, RB, cA, cB,
-                             cylA, cylB, _K_EDGE, _REFINE_ROUNDS)
-        return depth.astype(dtype), n.astype(dtype)
-
     A = (wA, vmA, cA, awA, cylA)
     B = (wB, vmB, cB, awB, cylB)
     axes = jnp.concatenate([nfA, -nfB], axis=0)               # (C, 3)
     amask = jnp.concatenate([fmA > 0.5, fmB > 0.5])
     depth, n = _best_axis(axes, amask, A, B)
-    depth, n = refine_rounds_xla(wA, vmA, wB, vmB, heA, hmA, heB, hmB,
-                                 cA, awA, cylA, cB, awB, cylB, RA, RB,
-                                 depth, n)
-    return depth.astype(dtype), n.astype(dtype)
-
-
-def refine_rounds_xla(wA, vmA, wB, vmB, heA, hmA, heB, hmB,
-                      cA, awA, cylA, cB, awB, cylB, RA, RB, depth, n):
-    """XLA form of the edge-cross refinement rounds (CPU path; the
-    reference semantics the pallas kernel must match —
-    tests/test_pallas_refine.py)."""
-    A = (wA, vmA, cA, awA, cylA)
-    B = (wB, vmB, cB, awB, cylB)
     for _ in range(_REFINE_ROUNDS):
         minA, maxA = _support_minmax(n[None, :], *A)
         minB, maxB = _support_minmax(n[None, :], *B)
@@ -266,7 +220,7 @@ def refine_rounds_xla(wA, vmA, wB, vmB, heA, hmA, heB, hmB,
         better = depthR < depth
         depth = jnp.where(better, depthR, depth)
         n = jnp.where(better, nR, n)
-    return depth, n
+    return depth.astype(dtype), n.astype(dtype)
 
 
 def _feature_poly(w, vm, n, s_ext, sign, fpl_w, fm, moh, fpoly_tab, p, R,
@@ -276,9 +230,9 @@ def _feature_poly(w, vm, n, s_ext, sign, fpl_w, fm, moh, fpoly_tab, p, R,
     fpoly_tab is the SHARED (nh, F, 16, 3) local face-polygon table and
     moh the (nh,) mesh one-hot: only the single best-aligned face's 16
     verts are selected (moh x face one-hot over the flattened nh*F axis)
-    and rotated to world — transforming all F polygons per lane was the
-    dominant HBM term of the exact query at manip batch (r5: (lanes, 34,
-    16, 3) world tables).
+    and rotated to world — transforming all F polygons per lane would
+    write (lanes, F, 16, 3) world tables to device memory at manip
+    batch.
 
     sign=+1: feature maximizes dot(v, n) at s_ext (hull A);
     sign=-1: feature minimizes it (hull B).  Face feature when the
@@ -372,10 +326,8 @@ def _convex_clip_points(pa, pb, eps):
     2D polygons, fully VECTORIZED: {A verts inside B} u {B verts inside
     A} u {edge-edge crossings} — mathematically the exact vertex set of
     the Sutherland-Hodgman result.  The sequential 16-pass SH clip this
-    replaces executed ~220 small ops per query; at manip batch the
-    exact query was dispatch-bound on exactly that tail (r5 profile:
-    1774 leaf ops, ~7 ms/step).  Downstream (_reduce4) only needs the
-    point SET, not ring order.
+    replaces executed ~220 small ops per query, each its own launch.
+    Downstream (_reduce4) only needs the point SET, not ring order.
 
     Returns (pts (N, 2), mask (N,)) with N = |A| + |B| + |A|*|B|."""
     ea = jnp.roll(pa, -1, axis=0) - pa                  # (NA, 2) edges
@@ -485,11 +437,10 @@ def exact_pair_contacts(pA, RA, mohA, cylA, pB, RB, mohB, cylB, enabled,
     (dict of SHARED stacked arrays: vert (nh, V, 3), vmask, fplane
     (nh, F, 4), fmask, fpoly (nh, F, 16, 3), hedge (nh, E, 2, 3),
     hemask) and are selected INSIDE the gated body — vmap this with
-    in_axes=(0, 0, 0, 0, 0, 0, 0, 0, 0, None).  Through r4 the caller
-    one-hot-gathered every table per lane up front; at manip batch
-    (4096 envs x 8 deep slots) the per-lane fpoly copies alone were
-    ~2 x 214 MB/step of HBM traffic (r5), and the gathers also ran
-    when the gate was off.  `enabled` gates the whole query behind a
+    in_axes=(0, 0, 0, 0, 0, 0, 0, 0, 0, None).  One-hot-gathering every
+    table per lane up front would copy the per-lane fpoly tables (~2 x
+    214 MB per step at 4096 envs x 8 deep slots), and the gathers would
+    also run when the gate is off.  `enabled` gates the whole query behind a
     one-iteration while_loop (disabled lanes cost one predicate
     evaluation and return ok=False).
 
@@ -536,9 +487,10 @@ def exact_pair_contacts(pA, RA, mohA, cylA, pB, RB, mohB, cylB, enabled,
         nfB = _rot(RB, fplaneB[:, :3])
         awA = RA[:, 2]            # cylinder axis = local +z
         awB = RB[:, 2]
-        depth, n = _mtv(wA, vmaskA, wB, vmaskB, nfA, fmaskA, nfB, fmaskB,
-                        hedgeA, hmaskA, hedgeB, hmaskB,
-                        pA, awA, cylA, pB, awB, cylB, RA, RB)
+        with jax.named_scope("mtv"):
+            depth, n = _mtv(wA, vmaskA, wB, vmaskB, nfA, fmaskA, nfB,
+                            fmaskB, hedgeA, hmaskA, hedgeB, hmaskB,
+                            pA, awA, cylA, pB, awB, cylB, RA, RB)
         ok = enabled & (depth > 0.0) & (depth < 1e8)
 
         rbA = jnp.sqrt(_masked_max((vertsA ** 2).sum(-1), vmaskA > 0.5,

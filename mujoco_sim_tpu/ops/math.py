@@ -206,10 +206,9 @@ def spatial_inertia(mass: jax.Array, inertia_mat: jax.Array, com: jax.Array) -> 
     c = skew(com)
     m = mass[..., None, None]
     eye = jnp.broadcast_to(jnp.eye(3, dtype=com.dtype), c.shape)
-    # c c^T for a skew matrix is (v.v)I - v v^T: pure elementwise VPU work.
-    # The literal batched (...,3,3)@(...,3,3) dot_general lowers as a
-    # "convolution fusion" that ran at ~5 GFLOP/s on the r2 PR2 trace
-    # (116us/step + a 40us layout copy at (256,45,3,3)).
+    # c c^T for a skew matrix is (v.v)I - v v^T: pure elementwise work
+    # that fuses, where the literal batched (...,3,3)@(...,3,3)
+    # dot_general would be its own op plus a layout copy.
     vv = (com * com).sum(-1)[..., None, None]
     outer = com[..., :, None] * com[..., None, :]
     top_left = inertia_mat + m * (vv * eye - outer)

@@ -1,6 +1,6 @@
 """Smooth (unconstrained) dynamics kernels: FK, COM frame, CRB, RNEA.
 
-TPU-native re-implementation of the MuJoCo pipeline stages the reference
+Batched re-implementation of the MuJoCo pipeline stages the reference
 calls through mj_step1/mj_forward/mj_mulM/mj_inverse (SURVEY.md §2.2;
 reference call sites: src/mj_main.cpp:83, src/mujoco_sim/mj_sim.cpp:1057,
 src/mujoco_sim/mj_hw_interface.cpp:61).
@@ -9,7 +9,7 @@ Design: single-env functions (vmap for the env axis).  Tree structure is
 baked in as *static* numpy index arrays (Model.layout), so every
 (level, joint-slot, joint-type) subgroup becomes a fully vectorized,
 branch-free gather/compute/scatter; the O(nv^2) work (mass matrix, bias
-projection) is expressed as einsums that XLA maps onto the MXU.
+projection) is expressed as batched einsums.
 
 Quantities match MuJoCo's c-frame convention (world orientation, origin at
 the subtree COM of each body's root) so cdof/cvel/qM are directly
@@ -32,10 +32,10 @@ def _fp(fn):
     """Force true-f32 matmuls regardless of caller context.
 
     These kernels are built on constant-mask matmuls (FK pointer doubling,
-    tree-prefix sums); under the TPU default bf16 matmul inputs the frame
-    positions round at ~1e-2 relative, which silently corrupts any eager
-    caller outside engine's _full_precision-wrapped entry points
-    (engine.set_const computed efc_D = 1e12 from a bf16 qM, r4 diagnosis).
+    tree-prefix sums); GPU f32 matmuls may run in TF32 (about three
+    decimal digits) unless a precision is asked for, which would silently
+    corrupt any eager caller outside engine's _full_precision-wrapped entry
+    points (engine.set_const computes efc_D from inv(qM)).
     """
     @wraps(fn)
     def wrapper(*args, **kwargs):
@@ -310,7 +310,7 @@ def com_pos(m: Model, kin: dict, mass=None, inertia=None):
     origin = subtree_com[lay.body_rootid]
 
     # spatial inertia of each body about its c-frame origin
-    # R diag(I) R^T as mul+reduce (K=3 einsums conv-lower on TPU, r2 trace)
+    # R diag(I) R^T as mul+reduce (a K=3 contraction fuses this way)
     RI = ximat * body_inertia[..., None, :]
     inert_world = (RI[..., :, None, :] * ximat[..., None, :, :]).sum(-1)
     cinert = mm.spatial_inertia(mass, inert_world, xipos - origin)
@@ -387,10 +387,9 @@ def _tree_masks(m: Model):
 
     The level-by-level scatter-add loops (subtree COM, composite inertia,
     spatial-velocity and qacc=0-acceleration propagation) each cost dozens
-    of gather/scatter HLO ops on the dispatch-bound flagship step (r3
-    profile: 4.7k ops x ~0.5us); as (nbody, nbody)/(nv, nv) constant-mask
-    matmuls they are single MXU ops with identical semantics (the sums
-    commute; only f.p. association order changes).
+    of small gather/scatter HLO ops per step; as (nbody, nbody)/(nv, nv)
+    constant-mask matmuls they are single ops with identical semantics (the
+    sums commute; only f.p. association order changes).
 
     Returns dict:
       sub  (nbody, nbody): sub[b, c] = 1 iff b is ancestor-or-self of c
@@ -472,7 +471,7 @@ def crb(m: Model, com: dict):
 
     M_ij = cdof_i^T IC_{body(j)} cdof_j for i ancestor-or-self of j, where
     IC is the subtree composite inertia.  Batched over envs this becomes one
-    big MXU einsum instead of MuJoCo's sparse CPU recursion.
+    big einsum instead of MuJoCo's sparse CPU recursion.
     """
     lay = m.layout
     cinert = com["cinert"]
@@ -526,9 +525,8 @@ def mul_m(m: Model, qM: jax.Array, vec: jax.Array) -> jax.Array:
 
 
 def factor_chol(qM: jax.Array) -> jax.Array:
-    # ops/linalg unrolled/blocked kernels: XLA's "Cholesky" custom-call costs
-    # ~2.5 ms at (4096, 6, 6) on TPU (r2 trace); the unrolled form fuses into
-    # the step program and is ~1000x cheaper at robot-sim sizes
+    # ops/linalg unrolled/blocked kernels: they fuse into the step program
+    # at robot-sim sizes
     from mujoco_sim_tpu.ops import linalg
     return linalg.cholesky(qM)
 

@@ -18,7 +18,7 @@ mu_v = mu0/sqrt(impratio):
 
 The optimum is the same as MuJoCo's Newton solver (same convex program), so
 single-env trajectories converge to the oracle's; the implementation is
-batched dense Cholesky + einsums (MXU) instead of sparse CPU recursions.
+batched dense Cholesky + einsums instead of sparse CPU recursions.
 Exact-ish line search via a few 1D Newton steps on the piecewise-quadratic
 restriction, like the reference solver's exact search.
 """
@@ -325,17 +325,8 @@ def solve(m: Model, d: Data) -> Data:
         # small relative ridge keeps H SPD under f32 rounding
         ridge = 1e-7 * jnp.trace(H) / H.shape[0]
         H = H + ridge * jnp.eye(H.shape[0], dtype=H.dtype)
-        from mujoco_sim_tpu.ops.pallas_chol import (chol_solve,
-                                                    use_pallas_chol)
-        if use_pallas_chol():
-            # fused factor+solve, true-f32 VPU: runs per Newton iteration,
-            # where the XLA blocked factor's ~400 tiny ops dominate the
-            # while body on the dispatch-bound flagship step (r4 profile)
-            p = -chol_solve(H, grad)
-        else:
-            from mujoco_sim_tpu.ops import linalg
-            L = linalg.cholesky(H)
-            p = -smooth.solve_chol(L, grad)
+        from mujoco_sim_tpu.ops import linalg
+        p = -smooth.solve_chol(linalg.cholesky(H), grad)
         p = jnp.where(jnp.isfinite(p), p, 0.0)
         alpha, Jp, new_cost, half_cost = line_search(a, p, x, Mda)
         # never accept an ascent step: the 1D Newton line search can

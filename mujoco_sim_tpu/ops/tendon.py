@@ -21,7 +21,7 @@ Spatial tendons are compiled into static LEG tables (models/compile.py):
   the chain (no segment across a pulley).
 
 Everything is batched over all legs of all tendons with scatter-adds
-into the (ntendon,) rows; no per-wrap loop (TPU-first replacement for
+into the (ntendon,) rows; no per-wrap loop (a batched replacement for
 libmujoco's mj_tendon inside mj_step1, SURVEY §2.2).
 """
 

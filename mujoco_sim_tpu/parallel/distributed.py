@@ -1,9 +1,9 @@
 """Multi-host scaffolding: jax.distributed + global env mesh.
 
 The reference's only distribution story is N sim processes talking ROS
-(SURVEY §2.5).  Here a multi-host TPU slice forms ONE logical mesh: each
-host drives its local chips, the env axis spans all devices globally
-(ICI within host, DCN across), and cross-instance coupling stays in-mesh.
+(SURVEY §2.5).  Here several hosts form ONE logical mesh: each host
+drives its local cards, the env axis spans all devices globally, and
+cross-instance coupling stays in-mesh.
 
 This module is exercised in CI via the single-process virtual mesh
 (tests/test_parallel.py); real pods call :func:`initialize` once per host.
@@ -20,8 +20,8 @@ def initialize(coordinator: str | None = None, num_processes: int | None = None,
                process_id: int | None = None):
     """Join the jax.distributed cluster (no-op when single-process).
 
-    On TPU pods arguments are auto-detected from the environment; on CPU/GPU
-    fleets pass coordinator ("host:port"), num_processes and process_id.
+    Pass coordinator ("host:port"), num_processes and process_id: nothing
+    in a plain GPU or CPU fleet tells JAX of the cluster.
     """
     if num_processes is not None and num_processes > 1:
         jax.distributed.initialize(coordinator_address=coordinator,

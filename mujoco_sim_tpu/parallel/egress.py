@@ -1,7 +1,7 @@
 """Trajectory egress with device-to-host overlap.
 
 The reference publishes state via ROS topics read directly from the global
-mjData (SURVEY §2.5); at TPU scale the equivalent hazard is the host pulling
+mjData (SURVEY §2.5); at batch scale the equivalent hazard is the host pulling
 rollout trajectories synchronously and stalling the device.  Here rollouts
 run in chunks: while the device computes chunk k+1 (JAX dispatch is async),
 the host copies chunk k out — so egress hides behind compute and the chip

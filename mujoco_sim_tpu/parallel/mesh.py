@@ -1,8 +1,8 @@
 """Env-axis parallelism over a device mesh.
 
 The reference's scaling story is 3 sim processes exchanging body state over
-ROS topics (launch/multi_mujoco_sim.launch, SURVEY §2.5).  TPU-native
-equivalent: thousands of env instances as a leading batch axis, sharded over
+ROS topics (launch/multi_mujoco_sim.launch, SURVEY §2.5).  Here:
+thousands of env instances as a leading batch axis, sharded over
 a ``Mesh`` with ``NamedSharding``/``shard_map``; cross-instance coupling
 (the send:/receive: weld sync of src/config/sim_1.yaml) becomes in-mesh
 collectives (ppermute) instead of sockets.
@@ -51,9 +51,9 @@ def batched_step(m: Model, dB: Data) -> Data:
 # which Data leaves does step() read before writing?  Everything else is
 # per-step derived output (efc_J is 20 MB at PR2x256!) that must NOT ride
 # the scan carry: carried-but-dead leaves cost layout copies at the while
-# boundary (~174us/step of (256,414,49) copies on the r2 PR2 trace) plus
-# HBM carry traffic.  Discovered automatically by DCE over the step jaxpr
-# so the set can never drift out of sync with the engine.
+# boundary plus device-memory carry traffic.  Discovered automatically by
+# DCE over the step jaxpr so the set can never drift out of sync with the
+# engine.
 _RECURRENT_CACHE: dict = {}
 
 
@@ -189,10 +189,12 @@ def make_sharded_step(m: Model, mesh: Mesh):
     return step
 
 
-def make_sharded_rollout(m: Model, mesh: Mesh, nsteps: int):
+def make_sharded_rollout(m: Model, mesh: Mesh, nsteps: int,
+                         full_final: bool = True):
+    """jit-compiled `rollout` with the env axis sharded over the mesh."""
     ax = mesh.axis_names[0]
     fn = jax.jit(
-        partial(rollout, nsteps=nsteps),
+        partial(rollout, nsteps=nsteps, full_final=full_final),
         in_shardings=(NamedSharding(mesh, P()), NamedSharding(mesh, P(ax))),
         out_shardings=NamedSharding(mesh, P(ax)),
         static_argnames=(),
@@ -202,7 +204,7 @@ def make_sharded_rollout(m: Model, mesh: Mesh, nsteps: int):
 
 def exchange_body_state(dB: Data, mesh: Mesh, body_id: int):
     """Multi-instance send/receive coupling: each env instance receives the
-    ring-neighbor's pose of `body_id` (TPU-native replacement for the
+    ring-neighbor's pose of `body_id` (in-mesh replacement for the
     reference's '_ref' mocap-weld sync over sockets, mj_sim.cpp:847-960).
 
     Returns (pos, quat) arrays aligned with the local env batch.
@@ -214,9 +216,7 @@ def exchange_body_state(dB: Data, mesh: Mesh, body_id: int):
         perm = [(i, (i + 1) % n) for i in range(n)]
         return jax.lax.ppermute(x, ax, perm)
 
-    from jax.experimental.shard_map import shard_map
-
-    f = shard_map(
+    f = jax.shard_map(
         lambda p, q: (shift(p), shift(q)),
         mesh=mesh,
         in_specs=(P(ax), P(ax)),

@@ -13,7 +13,6 @@ import os
 from typing import Any
 
 import numpy as np
-import yaml
 
 from mujoco_sim_tpu.engine import set_const
 from mujoco_sim_tpu.models import scene
@@ -38,6 +37,10 @@ def _odom_map(v: Any) -> dict:
 
 
 def load_config(path: str) -> dict:
+    # PyYAML only for YAML files: build(dict) and the server need no more
+    # than numpy, scipy and JAX
+    import yaml
+
     with open(path) as f:
         cfg = yaml.safe_load(f) or {}
     return cfg

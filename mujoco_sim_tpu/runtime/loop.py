@@ -6,7 +6,7 @@ doubled when >1 ms behind (capped at max_time_step) and halved back to
 nominal when caught up.  Because Option.timestep is an array *leaf* (not a
 static), retiming never retraces the compiled step.
 
-Throughput mode (pace=None) runs free — the TPU-native default for batch
+Throughput mode (pace=None) runs free — the default for batch
 rollouts (SURVEY §2.5 'real-time synchronization').
 """
 

@@ -3,7 +3,7 @@
 The reference's only instrumentation is the RTF tracker + XML-I/O timing
 warnings (SURVEY §5).  Here: per-stage wall timings of the compiled
 pipeline, steps/s + RTF gauges, and one-call jax.profiler trace capture for
-xprof/tensorboard analysis of the TPU schedule.
+xprof/tensorboard analysis of the device schedule.
 """
 
 from __future__ import annotations

@@ -2,8 +2,8 @@
 
 The reference's MjVisual is an in-process GLFW window with mouse camera and
 keyboard spawning (src/mujoco_sim/mj_visual.cpp:56-189, keyboard spawn
-src/mj_main.cpp:40-46).  TPU-native equivalent: the sim runs wherever the
-chips are; this client connects over TCP, consumes the ``markers`` stream at
+src/mj_main.cpp:40-46).  Here the sim runs wherever the accelerator is;
+this client connects over TCP, consumes the ``markers`` stream at
 the configured rate and renders with matplotlib — interactively when a
 display exists (mouse-drag camera via the 3D axes + arrow/+/- keys), or
 frame-dump mode for headless use.  Keys: b/s/c spawn box/sphere/cylinder

@@ -1,7 +1,7 @@
 // geomlib: native mesh pipeline for the model compiler.
 //
 // STL parsing, vertex dedup, 3D quickhull, and hull mass properties.
-// TPU-native counterpart of the mesh processing the reference delegates to
+// Host-side counterpart of the mesh processing the reference delegates to
 // libmujoco's qhull path when loading robot models (reference models under
 // model/test/*/stl are consumed via mj_loadXML).  Exposed as a C ABI for
 // ctypes; scipy remains the Python fallback when this library isn't built.

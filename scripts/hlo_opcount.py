@@ -1,14 +1,14 @@
-"""Where do the step program's ops come from?  (CPU, no chip needed.)
+"""Where do the step program's ops come from?  (CPU, no card needed.)
 
-The PR2 flagship step is op-count-bound on the chip (~4.7k ops x ~0.5us
-dispatch, r3 profile), so the perf lever is FEWER, BIGGER ops.  This tool
-compiles one batched step on CPU and buckets the optimized-HLO
+On a GPU each unfused op of the step is a kernel launch, so a step made
+of many small ops is launch-bound and the lever is FEWER, BIGGER ops.
+This tool compiles one batched step on CPU and buckets the optimized-HLO
 instructions by the source location XLA's op metadata carries, printing
 the top op-producing file:line sites.  CPU fusion decisions differ from
-TPU's, but the *source attribution* of the op population is what we need
-to decide what to fuse by hand.
+the GPU's, but the *source attribution* of the op population is what we
+need to decide what to fuse by hand.
 
-Usage: python scripts/hlo_opcount.py [pr2|box|manip] [nenv]
+Usage: python scripts/hlo_opcount.py [manip|box] [nenv]
 """
 
 import collections
@@ -21,28 +21,19 @@ sys.path.insert(0, _REPO)
 
 import jax
 
+from mujoco_sim_tpu.utils.cache import use_compile_cache  # noqa: E402
+
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(_REPO, ".jax_cache"))
+use_compile_cache()
 
 import jax.numpy as jnp  # noqa: E402
-import numpy as np  # noqa: E402
 
 
 def build(scenario):
     from mujoco_sim_tpu import engine
     from mujoco_sim_tpu.models.model import Integrator
 
-    if scenario == "pr2":
-        from mujoco_sim_tpu.models import scene
-        from mujoco_sim_tpu.models.compile import compile_spec
-        world = scene.compose(
-            "/root/reference/model/world/empty.xml",
-            robots={"pr2": scene.RobotConfig(
-                path="/root/reference/model/test/pr2/pr2.xml",
-                pose_init=np.array([0.0, 0.0, 0.05, 0, 0, 0]))})
-        m = engine.set_const(compile_spec(world))
-    elif scenario == "manip":
+    if scenario == "manip":
         from mujoco_sim_tpu.models.compile import load_model
         m = load_model(os.path.join(_REPO, "tests/fixtures/manip_bin6.xml"))
     else:
@@ -53,7 +44,7 @@ def build(scenario):
 
 
 def main():
-    scenario = sys.argv[1] if len(sys.argv) > 1 else "pr2"
+    scenario = sys.argv[1] if len(sys.argv) > 1 else "manip"
     nenv = int(sys.argv[2]) if len(sys.argv) > 2 else 4
     from mujoco_sim_tpu import engine
 

@@ -40,7 +40,7 @@ def _build(yaml_text, tmp_path):
 
 def test_build_single_robot_shorthand(tmp_path):
     spec, m, sim, meta = _build("""
-world: /root/reference/model/world/empty.xml
+world: tests/fixtures/empty_world.xml
 robot: tests/fixtures/cfgbot.xml
 add_odom_joints:
   cfgbot: true
@@ -58,7 +58,7 @@ def test_controller_claims_and_custom_type(tmp_path):
     allowlists one extra type substring (mj_ros.cpp:456-458,640-666;
     robot.yaml:60 'diff_drive_controller/DiffDriveController')."""
     base = """
-world: /root/reference/model/world/empty.xml
+world: tests/fixtures/empty_world.xml
 robots:
   cfgbot:
     path: tests/fixtures/cfgbot.xml

@@ -11,6 +11,8 @@ from mujoco_sim_tpu.models import scene
 from mujoco_sim_tpu.models.compile import compile_spec, load_model
 from mujoco_sim_tpu.engine import set_const
 
+EMPTY_WORLD = "tests/fixtures/empty_world.xml"
+
 ARM_XML = "tests/fixtures/arm.xml"
 
 
@@ -89,7 +91,7 @@ def test_odom_base_drive():
   </worldbody>
 </mujoco>""")
     world = scene.compose(
-        "/root/reference/model/world/empty.xml",
+        EMPTY_WORLD,
         robots={"base": scene.RobotConfig(
             path=base_xml,
             add_odom_joints={"lin_odom_x_joint": True,

@@ -11,6 +11,8 @@ from mujoco_sim_tpu.models.compile import load_model
 from mujoco_sim_tpu.export import usd as usd_mod
 from mujoco_sim_tpu.export import owl as owl_mod
 
+EMPTY_WORLD = "tests/fixtures/empty_world.xml"
+
 
 def test_usd_export_box(tmp_path):
     m = load_model("/root/reference/model/test/box.xml")
@@ -133,7 +135,7 @@ def test_texture_material_passthrough(tmp_path):
     from mujoco_sim_tpu.models import scene
 
     world = scene.compose(
-        "/root/reference/model/world/empty.xml",
+        EMPTY_WORLD,
         robots={"fball": scene.RobotConfig(
             path="tests/fixtures/floor_ball.xml")})
     from mujoco_sim_tpu.models.compile import compile_spec as _cs

@@ -17,6 +17,8 @@ from mujoco_sim_tpu.models.compile import compile_spec
 from mujoco_sim_tpu.runtime.sim import Simulation
 from mujoco_sim_tpu.io.server import SimServer
 
+EMPTY_WORLD = "tests/fixtures/empty_world.xml"
+
 PORT_A, PORT_B = 7611, 7612
 CUBE_XML = "tests/fixtures/sync_cube.xml"
 
@@ -33,7 +35,7 @@ def _make_world(with_receive: bool):
   </worldbody>
 </mujoco>""")
     spec = scene.compose(
-        "/root/reference/model/world/empty.xml",
+        EMPTY_WORLD,
         robots={"cube": scene.RobotConfig(path=CUBE_XML)})
     if with_receive:
         spec = scene.add_reference_bodies(spec, ["cube"])

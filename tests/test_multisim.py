@@ -9,10 +9,12 @@ from mujoco_sim_tpu.engine import set_const
 from mujoco_sim_tpu.models import scene, mjcf
 from mujoco_sim_tpu.models.compile import compile_spec
 
+EMPTY_WORLD = "tests/fixtures/empty_world.xml"
+
 
 def make_ref_model():
     world = scene.compose(
-        "/root/reference/model/world/empty.xml",
+        EMPTY_WORLD,
         robots={"sball": scene.RobotConfig(path="tests/fixtures/spawn_ball.xml")},
     )
     scene.add_reference_bodies(world, ["sball"], torquescale=0.9)

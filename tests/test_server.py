@@ -14,25 +14,16 @@ from mujoco_sim_tpu.runtime.sim import Simulation
 from mujoco_sim_tpu.io.server import SimServer
 from mujoco_sim_tpu.io.client import SimClient
 
+EMPTY_WORLD = "tests/fixtures/empty_world.xml"
+
 BALL_XML = "tests/fixtures/spawn_ball.xml"
 PORT = 7591
 
 
 @pytest.fixture(scope="module")
 def server():
-    if not os.path.exists(BALL_XML):
-        with open(BALL_XML, "w") as f:
-            f.write("""
-<mujoco model="sball">
-  <worldbody>
-    <body name="sball" pos="0 0 0.5">
-      <freejoint/>
-      <geom type="sphere" size=".1" mass="1"/>
-    </body>
-  </worldbody>
-</mujoco>""")
     world = scene.compose(
-        "/root/reference/model/world/empty.xml",
+        EMPTY_WORLD,
         robots={"sball": scene.RobotConfig(path=BALL_XML)},
         instances=4,
     )
@@ -161,7 +152,7 @@ def test_per_class_publisher_rates():
     import socket
 
     world = scene.compose(
-        "/root/reference/model/world/empty.xml",
+        EMPTY_WORLD,
         robots={"sball": scene.RobotConfig(path=BALL_XML)},
         instances=2)
     m = set_const(compile_spec(world))
@@ -235,7 +226,7 @@ def test_runtime_unregistered_asset_spawn(tmp_path):
     survivors' qpos/qvel/qacc_warmstart are BIT-preserved across the
     model swap, and the registered-class fast path keeps working."""
     world = scene.compose(
-        "/root/reference/model/world/empty.xml",
+        EMPTY_WORLD,
         robots={"sball": scene.RobotConfig(path=BALL_XML)},
         instances=2)
     m = set_const(compile_spec(world))

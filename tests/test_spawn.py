@@ -14,25 +14,14 @@ from mujoco_sim_tpu.models import scene
 from mujoco_sim_tpu.models.compile import compile_spec
 from mujoco_sim_tpu.runtime.sim import Simulation, NameAllocator
 
+EMPTY_WORLD = "tests/fixtures/empty_world.xml"
+
 BALL_XML = "tests/fixtures/spawn_ball.xml"
-
-
-def setup_module():
-    with open(BALL_XML, "w") as f:
-        f.write("""
-<mujoco model="sball">
-  <worldbody>
-    <body name="sball" pos="0 0 0.5">
-      <freejoint/>
-      <geom type="sphere" size=".1" mass="1"/>
-    </body>
-  </worldbody>
-</mujoco>""")
 
 
 def make_sim():
     world = scene.compose(
-        "/root/reference/model/world/empty.xml",
+        EMPTY_WORLD,
         robots={"sball": scene.RobotConfig(path=BALL_XML)},
         instances=3,
     )
@@ -123,7 +112,7 @@ def make_prim_sim(instances=2):
   </worldbody>
 </mujoco>""")
         robots[cls] = scene.RobotConfig(path=path)
-    world = scene.compose("/root/reference/model/world/empty.xml",
+    world = scene.compose(EMPTY_WORLD,
                           robots=robots, instances=instances)
     m = set_const(compile_spec(world))
     spawnable = {}

@@ -3,7 +3,7 @@ deadband springlength), damper, limit rows, tendon actuator transmission.
 
 The reference's libmujoco backend exposes the full <tendon> surface for
 arbitrary user worlds (SURVEY §2.2); fixed tendons are a static linear form
-W qpos, so the whole stage is two constant matmuls on TPU.
+W qpos, so the whole stage is two constant matmuls.
 """
 
 import jax
