@@ -152,6 +152,20 @@ def _time_rollout(run, m, dB, nenv, nsteps, reps=3):
     return res
 
 
+def compile_all(*lowered):
+    """Compile lowered programs concurrently (XLA compiles off the GIL, and
+    a manip program takes minutes); returns [(compiled, seconds)] in
+    order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(lo):
+        t0 = time.perf_counter()
+        return lo.compile(), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(lowered)) as ex:
+        return list(ex.map(one, lowered))
+
+
 def _rollout_fn(nsteps):
     import jax
 

@@ -14,8 +14,11 @@ before this process first touches it). Any failure exits non-zero.
              envs, Euler, each env stirring with its own `sin` phase, 100
              steps through engine.put_model -> parallel.mesh.scan_reduced
              under jax.jit. All state must stay finite.
-  reference  4 of those envs for 20 steps on the card and on the CPU
-             backend, f32 at "highest" matmul precision.
+  reference  4 of those envs, 20 steps on the card and on the CPU backend
+             (f32 at "highest" matmul precision on both) from the stirred
+             state after the rollout; arm angles, body positions and body
+             rotations are bounded separately, and the same card program
+             on a planted fault must exceed every bound.
   served     served-simulator deployment: a SimServer built by
              runtime.config.build around the empty world with a 4-slot
              spawnable sphere; through io.client.SimClient spawn 3 objects,
@@ -47,17 +50,30 @@ NSTEPS = 100
 CHUNK = 20            # steps per rollout call; the reference is one chunk
 NREF = 4
 
-# qpos (m, rad) of 4 envs after 20 steps, card vs CPU. Both run f32 at
-# "highest" matmul precision (no TF32 on the card), so the two differ only
-# by the order of floating-point sums (XLA:GPU vs XLA:CPU reductions and
-# fusion choices). Stiff contacts amplify such differences: a sum-order
-# change can move a contact's onset or a top-K tie by one step. The
-# scene's own parity band against the C oracle is 2.5e-3 over 50 stirred
-# steps even in f64 (tests/test_step.py::test_manip_scene_parity), and the
-# card read 2.4e-3 after 20 f32 steps, so the bound is 1e-2: a tenth of an
-# object's size, far below what a wrong contact, solver or integrator
-# would produce.
-REF_ATOL = 1e-2
+# Card vs CPU: 4 envs, 20 steps from the stirred state the rollout ends
+# in (after the objects have landed: from the initial drop, support-vertex
+# picks on near-flat faces flip by rounding and move orientations in
+# jumps). Both sides run f32 at "highest" matmul precision (no TF32 on the
+# card), so they differ only by the order of floating-point sums (XLA:GPU
+# vs XLA:CPU reductions and fusions), which stiff contacts amplify. qpos
+# is bounded per class: arm joint angles (rad), free-body positions (m),
+# free-body rotations (rad, the angle between the two orientations). Each
+# bound lies between the sound reading on an H100 (7.9e-6, 8.0e-5, 1.8e-3)
+# and that of the planted fault below (8.7e-3, 6.3e-4, 2.2e-2; PERF.md).
+REF_BOUNDS = {"joint": 2.5e-4, "pos": 2.5e-4, "rot": 6e-3}
+
+
+def planted_fault(m):
+    """The control: the same card program on a model with 10% less
+    sliding friction on every contact pair. The reference check must
+    tell it apart from the sound run in every class."""
+    return m.replace(pair_friction=m.pair_friction.at[:, :2].multiply(0.9))
+
+
+# --four: the first 4096 envs of the 4-card run vs the same envs on one
+# card. Both run the same per-env arithmetic at the same per-card shape,
+# so they may differ only where XLA partitions or fuses differently.
+FOUR_ATOL = 1e-5
 
 
 def _log(msg):
@@ -113,19 +129,6 @@ def device_phase():
     return dev
 
 
-def _compile_all(*lowered, **options):
-    """Compile lowered programs concurrently (XLA compiles off the GIL);
-    returns [(compiled, seconds)] in order."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    def one(lo):
-        t0 = time.perf_counter()
-        return lo.compile(**options), time.perf_counter() - t0
-
-    with ThreadPoolExecutor(len(lowered)) as ex:
-        return list(ex.map(one, lowered))
-
-
 def rollout_phase(state):
     """The manip rollout on the card; the CPU program of the reference
     phase compiles beside it."""
@@ -143,14 +146,13 @@ def rollout_phase(state):
     t0 = time.perf_counter()
     lo, lo_cpu = run.lower(m32, dB), run4.lower(m_cpu, d_cpu)
     _log(f"  trace and lower {time.perf_counter() - t0:.1f} s")
-    (compiled, tc), (c_cpu, tc_cpu) = _compile_all(lo, lo_cpu)
+    (compiled, tc), (c_cpu, tc_cpu) = bench.compile_all(lo, lo_cpu)
     _log(f"  rollout: {NENV} envs, compile {tc:.1f} s (CPU reference "
          f"program {tc_cpu:.1f} s, concurrently)")
     _log(f"  rollout memory_analysis: {compiled.memory_analysis()}")
     t0 = time.perf_counter()
     out = compiled(m32, dB)
     jax.block_until_ready(out.qpos)
-    first = out
     _log(f"  first chunk ({CHUNK} steps) {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
     for _ in range(NSTEPS // CHUNK - 1):
@@ -168,24 +170,65 @@ def rollout_phase(state):
         if not np.isfinite(x).all():
             raise FloatingPointError(f"non-finite {name} after {NSTEPS} "
                                      f"steps")
-    state.update(first=first, cpu_run=(c_cpu, m_cpu, d_cpu))
+    state.update(card_run=(compiled, m32), cpu_run=(c_cpu, m_cpu),
+                 stirred=out)
+
+
+def qpos_gaps(m, qa, qb):
+    """Largest difference of two qpos batches (envs, nq) per class: joint
+    angles (hinge and slide joints), free-body positions, and free-body
+    rotations as the angle of the relative rotation."""
+    import numpy as np
+
+    qa, qb = np.asarray(qa, np.float64), np.asarray(qb, np.float64)
+    free = np.asarray(m.jnt_qposadr)[np.asarray(m.jnt_type) == 0]
+    pos = (free[:, None] + np.arange(3)).ravel()
+    quat = free[:, None] + 3 + np.arange(4)
+    joint = np.setdiff1d(np.arange(qa.shape[1]),
+                         np.concatenate([pos, quat.ravel()]))
+    a, b = qa[:, quat], qb[:, quat]
+    a /= np.linalg.norm(a, axis=-1, keepdims=True)
+    b /= np.linalg.norm(b, axis=-1, keepdims=True)
+    # conj(a) * b = (a.b, wa vb - wb va - va x vb)
+    w = (a * b).sum(-1)
+    v = (a[..., :1] * b[..., 1:] - b[..., :1] * a[..., 1:]
+         - np.cross(a[..., 1:], b[..., 1:]))
+    rot = 2 * np.arctan2(np.linalg.norm(v, axis=-1), np.abs(w))
+    gap = np.abs(qa - qb)
+    return {"joint": float(gap[:, joint].max(initial=0.0)),
+            "pos": float(gap[:, pos].max(initial=0.0)),
+            "rot": float(rot.max(initial=0.0))}
+
+
+def _fmt(gaps):
+    return ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
 
 
 def reference_phase(state):
+    """Card vs CPU from the stirred state, with the planted fault as the
+    control that the bounds must catch."""
+    import jax
     import numpy as np
 
-    compiled, m_cpu, d_cpu = state["cpu_run"]
-    q_cpu = np.asarray(compiled(m_cpu, d_cpu).qpos)
-    q_gpu = np.asarray(state["first"].qpos)[:NREF]
-    diff = np.abs(q_gpu - q_cpu)
-    err = diff.max()
-    env, dof = np.unravel_index(diff.argmax(), diff.shape)
-    _log(f"  reference: {NREF} envs x {CHUNK} steps; |qpos card - qpos "
-         f"cpu| max {err:.3e} (env {env}, qpos {dof}), median "
-         f"{np.median(diff):.3e} (atol {REF_ATOL})")
-    if not err <= REF_ATOL:
-        raise AssertionError(f"card and CPU disagree: {err:.3e} > "
-                             f"{REF_ATOL}")
+    card, m32 = state["card_run"]
+    cpu_run, m_cpu = state["cpu_run"]
+    start = state["stirred"]
+    head = jax.tree.map(lambda x: x[:NREF], start)
+    q_cpu = cpu_run(m_cpu, jax.device_put(head, jax.devices("cpu")[0])).qpos
+
+    def gaps(m):
+        return qpos_gaps(m32, np.asarray(card(m, start).qpos)[:NREF], q_cpu)
+
+    got, ctl = gaps(m32), gaps(planted_fault(m32))
+    _log(f"  reference: {NREF} envs x {CHUNK} steps from step {NSTEPS}, "
+         f"card vs cpu: {_fmt(got)}; planted fault vs cpu: {_fmt(ctl)}; "
+         f"bounds {_fmt(REF_BOUNDS)}")
+    failures = [f"{k} {got[k]:.3e} > {b}" for k, b in REF_BOUNDS.items()
+                if not got[k] <= b]
+    failures += [f"planted fault {k} {ctl[k]:.3e} within {b}"
+                 for k, b in REF_BOUNDS.items() if not ctl[k] > b]
+    if failures:
+        raise AssertionError("reference check: " + "; ".join(failures))
 
 
 def served_phase():
@@ -280,18 +323,8 @@ def four_cards():
     ro1 = bench._rollout_fn(CHUNK)
     m1 = jax.device_put(m32, devs[0])
     d1 = jax.device_put(jax.tree.map(lambda x: x[:NENV], dB), devs[0])
-    # a manip compile takes minutes (PERF.md): each program starts
-    # compiling as soon as it is lowered, the two side by side
-    from concurrent.futures import ThreadPoolExecutor
-
-    def compile_timed(lo):
-        t0 = time.perf_counter()
-        return lo.compile(), time.perf_counter() - t0
-
-    with ThreadPoolExecutor(2) as ex:
-        f4 = ex.submit(compile_timed, ro4.lower(mr, dS))
-        f1 = ex.submit(compile_timed, ro1.lower(m1, d1))
-        (c4, t4), (c1, t1) = f4.result(), f1.result()
+    (c4, t4), (c1, t1) = bench.compile_all(ro4.lower(mr, dS),
+                                           ro1.lower(m1, d1))
     _log(f"  compile (side by side): 4-card {t4:.1f} s, 1-card {t1:.1f} s")
     rates = {}
     for label, c, mm, dd, n in (("1-card", c1, m1, d1, NENV),
@@ -314,9 +347,10 @@ def four_cards():
         else:
             err = np.abs(np.asarray(first.qpos)[:NENV] - ref).max()
             _log(f"  first {NENV} envs after {CHUNK} steps, 4-card vs "
-                 f"1-card: max |dqpos| {err:.3e}")
-            if not err <= REF_ATOL:
-                raise AssertionError(f"4-card and 1-card disagree: {err}")
+                 f"1-card: max |dqpos| {err:.3e} (atol {FOUR_ATOL})")
+            if not err <= FOUR_ATOL:
+                raise AssertionError(f"4-card and 1-card disagree: {err:.3e}"
+                                     f" > {FOUR_ATOL}")
             # every env's body-1 position tagged with its env index
             tag = np.broadcast_to(
                 np.arange(4 * NENV, dtype=np.float32)[:, None, None],
@@ -355,7 +389,7 @@ def main(argv):
     else:
         state = {}
         ph.run("rollout", rollout_phase, state)
-        if "first" in state:
+        if "card_run" in state:
             ph.run("reference", reference_phase, state)
         else:
             ph.failed.append("reference (no rollout)")

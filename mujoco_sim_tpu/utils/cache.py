@@ -16,17 +16,20 @@ import jax
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
+# programs that compile faster than this are not worth a cache entry
+MIN_COMPILE_SECS = 5.0
+
 
 def compile_cache_dir() -> str:
     return (os.environ.get("JAX_COMPILATION_CACHE_DIR")
             or os.path.join(_REPO, ".jax_cache"))
 
 
-def use_compile_cache(min_compile_secs: float = 5.0) -> str:
+def use_compile_cache() -> str:
     """Point JAX's persistent compilation cache at ``compile_cache_dir()``
-    and cache only programs that took at least ``min_compile_secs``."""
+    and cache only programs that took at least ``MIN_COMPILE_SECS``."""
     path = compile_cache_dir()
     jax.config.update("jax_compilation_cache_dir", path)
     jax.config.update("jax_persistent_cache_min_compile_time_secs",
-                      min_compile_secs)
+                      MIN_COMPILE_SECS)
     return path

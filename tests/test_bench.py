@@ -47,9 +47,10 @@ def test_compile_cache_from_environment(monkeypatch, tmp_path,
                                         restore_cache_config):
     monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
     assert cache.compile_cache_dir() == str(tmp_path)
-    assert cache.use_compile_cache(7.0) == str(tmp_path)
+    assert cache.use_compile_cache() == str(tmp_path)
     assert jax.config.jax_compilation_cache_dir == str(tmp_path)
-    assert jax.config.jax_persistent_cache_min_compile_time_secs == 7.0
+    assert (jax.config.jax_persistent_cache_min_compile_time_secs
+            == cache.MIN_COMPILE_SECS)
 
 
 def test_compile_cache_defaults_to_repo(monkeypatch, restore_cache_config):
@@ -90,6 +91,40 @@ def test_stage_attribution_from_hlo_metadata():
            _ev(9, 1, "copy.3")]
     assert ps.stage_breakdown(evs, names) == {"mtv": 3, "solver": 4,
                                               "other": 1}
+
+
+@pytest.mark.parametrize("n", [6, 42])
+def test_chol_forms_agree_and_patch_is_undone(n):
+    """profile_step's Cholesky A/B: both forms solve the same SPD system
+    inside a jitted vmap, and the engine's own form is back afterwards."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from mujoco_sim_tpu.ops import linalg
+
+    rng = np.random.default_rng(n)
+    a = rng.standard_normal((3, n, n))
+    spd = jnp.asarray(a @ np.swapaxes(a, -1, -2) + n * np.eye(n))
+    rhs = jnp.asarray(rng.standard_normal((3, n)))
+
+    def solve(A, b):
+        return linalg.cho_solve(linalg.cholesky(A), b)
+
+    own = linalg.cholesky, linalg.cho_solve
+    want = np.linalg.solve(np.asarray(spd), np.asarray(rhs)[..., None])
+    for form in ps.CHOL_FORMS:
+        with ps.chol_form(form):
+            assert (linalg.cholesky is own[0]) == (form == "unrolled")
+            x = jax.jit(jax.vmap(solve))(spd, rhs)
+        np.testing.assert_allclose(np.asarray(x), want[..., 0], rtol=1e-9,
+                                   atol=1e-9)
+    assert (linalg.cholesky, linalg.cho_solve) == own
+
+
+def test_unknown_chol_form_is_refused():
+    with pytest.raises(SystemExit, match="unknown Cholesky form"):
+        with ps.chol_form("magma"):
+            pass
 
 
 @pytest.mark.gpu
